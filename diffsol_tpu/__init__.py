@@ -1,10 +1,10 @@
-"""diffsol_tpu: a TPU-native ODE/DAE solver framework in JAX/XLA/Pallas.
+"""diffsol_tpu: an ODE/DAE solver framework in JAX/XLA/Pallas.
 
 Built from scratch with the capabilities of the `diffsol` reference
 (variable-order BDF/NDF, SDIRK TR-BDF2/ESDIRK34, explicit TSIT45, adaptive
 step/order control, singular-mass DAEs with consistent ICs, events with
-resets, quadrature, forward and adjoint sensitivities) re-designed for TPU:
-solvers are jitted ``lax.while_loop`` state machines over pytrees, AD comes
+resets, quadrature, forward and adjoint sensitivities) re-designed for an
+accelerator: solvers are jitted ``lax.while_loop`` state machines over pytrees, AD comes
 from JAX, ensembles come from ``vmap`` + mesh sharding.
 """
 

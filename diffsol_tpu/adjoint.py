@@ -30,7 +30,7 @@ modified, restarting at order 1 -- exactly the reference's behavior at
 discrete jumps).
 
 :func:`make_differentiable_solve` wraps all of this in a ``jax.custom_vjp``,
-so ``jax.grad`` of any scalar function of the solution works -- the TPU-native
+so ``jax.grad`` of any scalar function of the solution works -- the JAX-native
 replacement for the reference's `AdjointOdeSolverMethod` API (and something
 the reference cannot do: compose with the rest of a JAX program).
 """
@@ -44,6 +44,7 @@ import jax
 import jax.numpy as jnp
 
 from . import errors
+from .precision import highest_precision
 from .drivers import init_state_jit
 from .equations import OdeEquations, make_equations
 from .problem import OdeProblem
@@ -596,6 +597,7 @@ def _make_jump(problem):
     else:
         alg_np = jnp.asarray(alg)
 
+        @highest_precision
         def jump(lam, gp_rows, v, t, x, params):
             J = jax.jacfwd(lambda yy: eqn.rhs(t, yy, params))(x)
             A = J.T
@@ -957,6 +959,7 @@ def backward_pass_bounded(problem, solver_cls, fwd_solver, ckpts, events,
     return _init_correction(problem, params, state.y[:n], state.y[n:])
 
 
+@highest_precision
 def _init_correction(problem, params, lam0, gp):
     """Initial-condition correction (adjoint.rs:151-156 correct_sg_for_init):
     dG/dp += (dy0/dp)^T M^T lambda(t0)  (M from the Lagrangian term

@@ -4,7 +4,7 @@ The reference's adjoint operates over its ``nbatch`` batched context
 (reference crates/diffsol/src/ode_solver/adjoint.rs:13-159 with
 crates/diffsol-la/src/context/mod.rs:20-51): every vector in the backward
 pass carries the batch axis and the discrete output jumps apply per batch
-member.  The TPU analog extends :mod:`diffsol_tpu.adjoint` to lockstep
+member.  This module extends :mod:`diffsol_tpu.adjoint` to lockstep
 ensemble problems:
 
 * the forward pass records a batch-last step table (rows, n, B) -- the

@@ -1,11 +1,11 @@
 """Augmented equation sets integrated alongside the main equations.
 
-TPU-native equivalent of the reference's ``AugmentedOdeEquations`` interface
+JAX equivalent of the reference's ``AugmentedOdeEquations`` interface
 (reference crates/diffsol/src/ode_equations/mod.rs:42-186): ONE abstraction
 behind forward sensitivities, adjoint systems and any future augmented
 system, so the steppers implement augmented integration once.  Where the
 reference iterates ``set_index(j)`` over augmented systems one at a time,
-the TPU design carries ALL rows at once as an ``(naug, ...)`` array and
+this design carries ALL rows at once as an ``(naug, ...)`` array and
 vmaps — augmented rows ride a leading axis and every solve shares the main
 equation's factorized iteration matrix.
 

@@ -3,7 +3,7 @@
 The reference compiles DiffSL (a tensor DSL for ODE/DAE systems) to native
 code via LLVM/Cranelift with Enzyme for derivatives (reference
 crates/diffsol/src/ode_equations/diffsl.rs:38-330 and the external diffsl
-crate).  The TPU-native equivalent needs no separate codegen stage: the
+crate).  The JAX equivalent needs no separate codegen stage: the
 parsed tensor graph is *traced* into jittable JAX callables -- XLA is the
 JIT and jax AD replaces Enzyme.  Constant tensors (literal-keyed matrices
 like heat2d's D_ij) are folded to numpy arrays at build time so tracing
@@ -740,7 +740,7 @@ class DiffslModel:
 
     ``compile_diffsl`` produces this; :meth:`make_callables` yields the
     (rhs, init, mass, root, out, reset) JAX closures that plug into
-    :class:`diffsol_tpu.problem.OdeBuilder` (the TPU analog of the
+    :class:`diffsol_tpu.problem.OdeBuilder` (the analog of the
     reference DiffSl equations object, diffsl.rs:290-330).
     """
 

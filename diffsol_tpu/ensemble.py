@@ -4,19 +4,16 @@ The reference's parallelism axis is batched ensemble solving on one GPU via
 the ``nbatch`` execution context (reference crates/diffsol-la/src/context/
 mod.rs:20-51, vector/cuda.rs:34-65 2D kernel grids, cuda/lu.rs per-batch LU;
 error norms reduce MAX across batch members so every member shares one
-adaptive step, vector/mod.rs tests:756-775).  The TPU build provides BOTH
+adaptive step, vector/mod.rs tests:756-775).  This package provides BOTH
 semantics, each sharded over a ``jax.sharding.Mesh``:
 
 * **lockstep** (reference parity): ONE solve whose state "vector" is the
-  2-D array (nstates, nbatch) -- species in the sublane axis, the huge
-  ensemble axis in the 128-wide lanes.  All solver arithmetic is shape
-  agnostic, the WRMS norms reduce mean-over-states then max-over-members
+  2-D array (nstates, nbatch) -- the ensemble axis last, so it is the
+  contiguous one.  All solver arithmetic is shape agnostic, the WRMS
+  norms reduce mean-over-states then max-over-members
   (:mod:`diffsol_tpu.norms`), and the block LU runs batch-LAST on
-  (n, n, nbatch) Jacobian stacks.  This layout is the TPU-critical choice:
-  TPU tiling pads the last two array dims to (8, 128), so a member-major
-  (10000, 3) state or (10000, 3, 3) Jacobian batch bloats 40-280x, and
-  flat->2-D reshapes trigger pathological relayouts; (n, nbatch) arrays
-  have neither problem.
+  (n, n, nbatch) Jacobian stacks: every per-member scalar of the
+  elimination is then one contiguous vector across the ensemble.
 * **independent**: ``vmap`` of the whole stepper -- JAX's while-loop
   batching gives each member its own adaptive control flow (finished
   members are masked).  More robust for heterogeneous/event-driven
@@ -84,10 +81,9 @@ def _lockstep_dense_spec(nbatch: int, n: int) -> LinearSolverSpec:
     )
 
 
-# NOTE: the banded tier needs no lockstep wrapper -- both its kernels accept
-# batch-LAST (nbands, n, B) band arrays natively (members on the 128-wide
-# lane axis, ops/banded.py + ops/pallas_banded.py), matching the lockstep
-# state layout (n, B) without any transposes in the hot path.
+# NOTE: the banded tier needs no lockstep wrapper -- its kernels accept
+# batch-LAST (nbands, n, B) band arrays natively (ops/banded.py), matching
+# the lockstep state layout (n, B).
 
 
 def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
@@ -230,180 +226,6 @@ def make_lockstep_problem(problem: OdeProblem, nbatch: int) -> OdeProblem:
     )
 
 
-# fused-solve cache: repeat calls with the same (problem, t_eval, B, ...)
-# reuse the built+jitted kernel instead of re-tracing (the stored problem
-# reference also keeps id() stable for the key's lifetime)
-_fused_cache: dict = {}
-
-
-def _make_fused_solve(problem, t_eval, nbatch, max_steps, interpret,
-                      precision="df"):
-    """Route to a fused whole-solve kernel: the small-n unrolled stepper
-    first (n <= 8), then the banded medium-n stepper (MOL class).
-    Returns ``(solve_fn, tier_name)`` so the Solution can surface which
-    (tiled-lockstep) semantics produced it."""
-    from .ops.dfinterp import UnsupportedForPallas
-    from .ops.pallas_stepper import make_pallas_bdf_solve
-    from .ops.pallas_stepper_band import make_pallas_band_bdf_solve
-
-    try:
-        tier = (
-            "fused_small" if precision == "df"
-            else f"fused_small_{precision}"
-        )
-        return make_pallas_bdf_solve(
-            problem, t_eval, nbatch=nbatch, max_steps=max_steps,
-            interpret=interpret, precision=precision,
-        ), tier
-    except UnsupportedForPallas as e_small:
-        if precision != "df":
-            raise UnsupportedForPallas(
-                f"precision={precision!r} is a small-n-tier option and the "
-                f"small-n tier rejected this problem: {e_small}"
-            ) from None
-        try:
-            return make_pallas_band_bdf_solve(
-                problem, t_eval, nbatch=nbatch, max_steps=max_steps,
-                interpret=interpret,
-            ), "fused_band"
-        except UnsupportedForPallas as e_band:
-            raise UnsupportedForPallas(
-                f"small-n tier: {e_small}; banded tier: {e_band}"
-            ) from None
-
-
-def _fused_solve_cached(problem, t_eval, nbatch, max_steps, interpret,
-                        mesh, axis, precision="df"):
-    te_key = tuple(float(v) for v in jnp.asarray(t_eval).reshape(-1))
-    mesh_key = (
-        None if mesh is None
-        else (id(mesh), tuple(mesh.shape.items()), axis)
-    )
-    key = (id(problem), te_key, nbatch, max_steps, interpret, mesh_key,
-           precision)
-    hit = _fused_cache.get(key)
-    if hit is not None and hit[0] is problem:
-        return hit[1], hit[2]
-    if mesh is None:
-        local, tier = _make_fused_solve(
-            problem, t_eval, nbatch, max_steps, interpret, precision,
-        )
-        fn = jax.jit(local)
-    else:
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
-
-        nshards = mesh.shape[axis]
-        local, tier = _make_fused_solve(
-            problem, t_eval, nbatch // nshards, max_steps, interpret,
-            precision,
-        )
-        if problem.eqn.root is not None or problem.integrate_out:
-            # extended dict return (root/quadrature in kernel)
-            out_specs = dict(
-                ys=P(None, None, axis), status=P(axis), steps=P(axis),
-                n_points=P(axis),
-            )
-            if problem.integrate_out:
-                out_specs["gs"] = P(None, None, axis)
-            if problem.eqn.root is not None:
-                out_specs.update(
-                    n_roots=P(axis), root_idx=P(axis), root_t=P(axis)
-                )
-        else:
-            out_specs = (P(None, None, axis), P(axis), P(axis))
-        sm_kwargs = dict(mesh=mesh, in_specs=P(axis), out_specs=out_specs)
-        try:
-            sharded = shard_map(local, check_vma=False, **sm_kwargs)
-        except TypeError:  # older jax spelling
-            sharded = shard_map(local, check_rep=False, **sm_kwargs)
-        fn = jax.jit(sharded)
-    _fused_cache[key] = (problem, fn, tier)
-    return fn, tier
-
-
-def _fused_solution(fsolve, params_batch, t_eval, problem=None, tier=None):
-    """Run the fused Pallas whole-solve kernel and wrap its raw results
-    into the drivers.Solution surface (shared-fate lockstep semantics:
-    the worst tile status is the batch status).  Root/quadrature kernels
-    return a dict; the semantics mirror drivers.solve_dense exactly:
-    reset-continue ends TSTOP_REACHED with root_t unreported, a no-reset
-    root ends ROOT_FOUND at member 0's polished crossing, and a
-    tile-inconsistent (or cross-tile-inconsistent) crossing is
-    ROOT_BATCH_INCONSISTENT."""
-    from . import errors
-    from .drivers import Solution
-    from .ops import pallas_stepper as ps
-
-    raw = fsolve(params_batch)
-    if isinstance(raw, dict):
-        ys, status, steps = raw["ys"], raw["status"], raw["steps"]
-        gs = raw.get("gs")
-        root_t, root_idx = raw.get("root_t"), raw.get("root_idx")
-    else:
-        ys, status, steps = raw
-        gs = root_t = root_idx = None
-    # solve_dense parity: n_points is always neval (points past a root
-    # stop are zeros in both paths)
-    n_points = jnp.asarray(len(jnp.asarray(t_eval)), jnp.int32)
-    ys = jnp.moveaxis(ys, -1, 1)  # (neval, B, n)
-    if gs is not None:
-        gs = jnp.moveaxis(gs, -1, 1)  # (neval, B, nout)
-    worst = jnp.min(status)
-    stop = jnp.where(
-        worst == ps._FAIL_STEP_TOO_SMALL, errors.STEP_SIZE_TOO_SMALL,
-        jnp.where(
-            worst == ps._FAIL_MAX_STEPS, errors.MAX_STEPS_REACHED,
-            jnp.where(
-                worst == ps._FAIL_NEWTON,
-                errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
-                jnp.where(
-                    worst == ps._FAIL_ERRTEST,
-                    errors.TOO_MANY_ERROR_TEST_FAILURES,
-                    jnp.where(
-                        worst == ps._FAIL_ROOT_INCONS,
-                        errors.ROOT_BATCH_INCONSISTENT,
-                        jnp.where(
-                            # no-pivot LU growth blow-up surfaces the
-                            # same way the XLA band tier does: as a
-                            # (non)linear-solver failure
-                            worst == ps._FAIL_LU_GROWTH,
-                            errors.TOO_MANY_NONLINEAR_SOLVER_FAILURES,
-                            errors.TSTOP_REACHED,
-                        ),
-                    ),
-                ),
-            ),
-        ),
-    ).astype(jnp.int32)
-    te = jnp.asarray(t_eval)
-    sol_root_t = jnp.asarray(jnp.nan, ys.dtype)
-    sol_root_idx = jnp.asarray(-1, jnp.int32)
-    has_reset = problem is not None and problem.eqn.reset is not None
-    if root_t is not None and not has_reset:
-        # stop-at-root: every tile must agree a root fired (XLA lockstep
-        # requires the whole batch to cross together)
-        any_root = jnp.any(status == ps._ROOT_STOP)
-        all_root = jnp.all(status == ps._ROOT_STOP)
-        stop = jnp.where(
-            (worst >= 0) & any_root & ~all_root,
-            errors.ROOT_BATCH_INCONSISTENT,
-            jnp.where((worst >= 0) & all_root, errors.ROOT_FOUND, stop),
-        ).astype(jnp.int32)
-        sol_root_t = jnp.where(all_root, root_t[0], sol_root_t)
-        sol_root_idx = jnp.where(
-            all_root, root_idx[0], sol_root_idx
-        ).astype(jnp.int32)
-    return Solution(
-        ts=te, ys=ys, gs=gs, sens=None, stop_reason=stop,
-        n_points=jnp.asarray(n_points, jnp.int32),
-        root_t=sol_root_t, root_idx=sol_root_idx,
-        state=None, tile_steps=steps, tier=tier,
-    )
-
-
 def solve_dense_ensemble(
     make_solver,
     problem: OdeProblem,
@@ -413,8 +235,6 @@ def solve_dense_ensemble(
     mesh: Optional[Mesh] = None,
     axis: str = "dp",
     max_steps: int = 100_000,
-    interpret: bool = False,
-    precision: str = "df",
 ):
     """Solve an ensemble over ``params_batch`` (B, nparams).
 
@@ -423,57 +243,12 @@ def solve_dense_ensemble(
     Returns a :class:`diffsol_tpu.drivers.Solution` whose ``ys`` is
     (neval, B, nstates).
 
-    Modes: ``lockstep`` (reference nbatch-context parity), ``independent``
-    (vmap, per-member adaptivity), ``fused`` (the whole-solve Pallas
-    kernel tier -- small-n ODEs and diag-mass DAEs, BDF only; raises
-    :class:`~diffsol_tpu.ops.dfinterp.UnsupportedForPallas` out of scope),
-    and ``auto`` (``fused`` when in scope on a TPU backend, else
-    ``lockstep``).
-
-    ``precision="mixed"`` (fused small-n tier only) demotes the in-kernel
-    Newton matrix path (Jacobian probes, LU) to plain f32 -- trajectories
-    agree with the default df tier at the error-test tolerance level for
-    a large cut of the kernel's flops (see make_pallas_bdf_solve).
+    Modes: ``lockstep`` (reference nbatch-context parity: one shared
+    adaptive step sequence) and ``independent`` (vmap, per-member
+    adaptivity).
     """
     params_batch = jnp.asarray(params_batch)
     nbatch = params_batch.shape[0]
-
-    if mode in ("fused", "auto"):
-        from .ops.dfinterp import UnsupportedForPallas
-
-        on_tpu = jax.default_backend() == "tpu"
-        try:
-            if mode == "fused" or on_tpu:
-                # member tiles are independent: with a mesh, the batch
-                # axis shards via shard_map; each device runs its own
-                # fused kernels and the hot loop touches NO collectives
-                # (ICI only pays the final all-gather of ys, inserted by
-                # XLA from the out_specs)
-                if mesh is not None and nbatch % mesh.shape[axis]:
-                    raise ValueError(
-                        f"fused+mesh needs nbatch divisible by mesh axis "
-                        f"{axis!r} ({nbatch} % {mesh.shape[axis]})"
-                    )
-                fsolve, tier = _fused_solve_cached(
-                    problem, t_eval, nbatch, max_steps,
-                    interpret or not on_tpu, mesh, axis, precision,
-                )
-                if mesh is not None:
-                    params_batch = jax.device_put(
-                        params_batch, NamedSharding(mesh, P(axis))
-                    )
-                return _fused_solution(
-                    fsolve, params_batch, t_eval, problem=problem,
-                    tier=tier,
-                )
-        except UnsupportedForPallas:
-            if mode == "fused":
-                raise
-        if mode == "fused":
-            raise UnsupportedForPallas(
-                "fused tier requires a TPU backend (or interpret=True)"
-            )
-        mode = "lockstep"
 
     if mode == "lockstep":
         lp = make_lockstep_problem(problem, nbatch)
@@ -486,8 +261,8 @@ def solve_dense_ensemble(
             )
             ys = jnp.moveaxis(sol.ys, -1, 1)  # (neval, B, n)
             gs = sol.gs
-            if gs is not None and problem.eqn.nout:
-                gs = jnp.moveaxis(gs, -1, 1)
+            if gs is not None:  # out(t, y) columns, or the quadrature of y
+                gs = jnp.moveaxis(gs, -1, 1)  # (neval, B, nout or n)
             return sol.replace(ys=ys, gs=gs, tier="lockstep")
 
         if mesh is not None:
@@ -517,4 +292,7 @@ def solve_dense_ensemble(
             run = jax.jit(run, in_shardings=(shard,))
         return run(params_batch)
 
-    raise ValueError(f"unknown ensemble mode: {mode!r}")
+    raise ValueError(
+        f"unknown ensemble mode: {mode!r} (valid modes: 'lockstep', "
+        "'independent')"
+    )

@@ -11,7 +11,7 @@ with optional root functions g_root(t, y, p) (events), an output g_out(t, y, p)
 (optionally quadrature-integrated), and a reset R(t, y, p) applied after a root
 event.  Where the reference needs hand-written Jacobian closures, Enzyme
 autodiff (op/closure_autodiff.rs) or NaN-probe sparsity detection
-(jacobian/mod.rs:16-114), the TPU build derives everything from ``jax.jacfwd``
+(jacobian/mod.rs:16-114), this build derives everything from ``jax.jacfwd``
 / ``jax.jvp`` / ``jax.vjp`` -- automatic differentiation is the default, not a
 feature.
 
@@ -59,8 +59,8 @@ class OdeEquations:
     # probed mass is diagonal (the common DAE case: reference heat2d,
     # foodweb, robertson all carry diag masses).  mass_mul becomes an
     # elementwise multiply and LU assembly never materializes (n, n[, B]) --
-    # for a 400-state 32-member heat2d the dense einsum was ~4e8
-    # f64-emulated MACs PER RESIDUAL EVALUATION.
+    # for a 400-state 32-member heat2d the dense einsum would be ~5e6 MACs
+    # per residual evaluation.
     mass_diag_fn: Optional[Callable] = None  # (t, p) -> diag
     nstates: int = 0
     nout: int = 0

@@ -1,6 +1,6 @@
 """Runtime-dispatch solver factory.
 
-The TPU equivalent of the reference's runtime-polymorphism layer
+The equivalent of the reference's runtime-polymorphism layer
 (reference crates/diffsol-c/src/ode_solver_type.rs `OdeSolverType`
 {Bdf, Esdirk34, TrBdf2, Tsit45} + ode_solver_tag.rs dispatch and the
 per-solver factory methods on `OdeSolverProblem`, problem.rs:597-1204):

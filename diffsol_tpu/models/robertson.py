@@ -48,9 +48,7 @@ def rhs_dae(t, y, p):
 
 
 def rhs_ode(t, y, p):
-    # the reference's exact row forms (robertson_ode.rs:56-60); row 2 as
-    # k3*y1^2 (not -r0-r1) also shortens the serial dependency chain in
-    # the fused df32 kernel, whose per-step floor is latency-bound
+    # the reference's exact row forms (robertson_ode.rs:56-60)
     return jnp.array(
         [
             -p[0] * y[0] + p[1] * y[1] * y[2],

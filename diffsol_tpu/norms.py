@@ -9,9 +9,8 @@ For batched (ensemble-lockstep) vectors the reference reduces the mean over
 states per batch member, then takes the MAX across batch members so every
 member shares one adaptive step (vector/mod.rs tests:756-775).
 
-TPU layout note: lockstep state "vectors" are 2-D arrays (n, nbatch) --
-states in the sublane axis, the huge ensemble axis in the 128-wide lanes --
-so every elementwise solver op is fully vectorized with no reshapes.  The
+Layout note: lockstep state "vectors" are 2-D arrays (n, nbatch) --
+the ensemble axis last and contiguous -- so every elementwise solver op is fully vectorized with no reshapes.  The
 norm reduces mean over the states axis (-2) and max over members and any
 extra leading axes (e.g. sensitivity rows).
 """

@@ -1,12 +1,12 @@
 """Banded linear-solver tier: no-pivot banded LU + coloring-based Jacobians.
 
-TPU replacement for the reference's sparse LU backends used on
+Replacement for the reference's sparse LU backends used on
 method-of-lines Jacobians (reference crates/diffsol-la/src/linear_solver/
 suitesparse/klu.rs, faer/sparse_lu.rs) and its graph-coloring Jacobian
 machinery (crates/diffsol/src/jacobian/: NaN-probe sparsity detection +
-greedy coloring).  On TPU there is no KLU; banded structure is the common
-case for MOL PDEs (heat1d/heat2d-class problems), and a band factorization
-is O(n*ml*mu) with fixed shapes.
+greedy coloring).  Banded structure is the common case for MOL PDEs
+(heat1d/heat2d-class problems), and a band factorization is O(n*ml*mu)
+with fixed shapes, batchable over an ensemble.
 
 * Band storage is column-major LAPACK-style: ``band[d, j] = A[j + d - mu, j]``
   for d in [0, ml+mu], so ``band[mu]`` is the main diagonal.
@@ -173,7 +173,9 @@ def _band_lu_solve(bandp, b, ml: int, mu: int):
     return x[..., :n]
 
 
-def make_banded_solver(ml: int, mu: int, kernel: str = "auto") -> LinearSolverSpec:
+def make_banded_solver(
+    ml: int, mu: int, kernel: str = "auto", interpret: bool = False
+) -> LinearSolverSpec:
     """A :class:`LinearSolverSpec` for matrices with bandwidth (ml, mu).
 
     The matrix representation through assemble/factor is the (ml+mu+1, n)
@@ -181,23 +183,24 @@ def make_banded_solver(ml: int, mu: int, kernel: str = "auto") -> LinearSolverSp
     ``rhs_jac`` must produce this representation (the OdeBuilder installs
     :func:`make_banded_jac` automatically when this tier is selected).
 
-    ``kernel`` selects the factorization backend:
+    ``kernel`` selects the factorization backend, both in the problem
+    dtype:
 
-    * ``"pallas"`` -- one-kernel f32 Pallas factor/solve with the band
-      resident in VMEM (:mod:`diffsol_tpu.ops.pallas_banded`); the LU is a
-      preconditioner, residuals stay in the problem dtype.  This is the TPU
-      path: the XLA formulation compiles pathologically there.
-    * ``"xla"`` -- the fori_loop/dynamic-slice formulation below, full
-      dtype; fast to compile on CPU, used for f64 parity testing.
-    * ``"auto"`` (default) -- "pallas" when the default JAX backend is TPU
-      at spec-construction time, else "xla".
+    * ``"triton"`` -- one Pallas program per block of ensemble members runs
+      the whole column loop (:mod:`diffsol_tpu.ops.pallas_banded`): one
+      launch per factorization or solve.  Needs a GPU, or
+      ``interpret=True``.
+    * ``"xla"`` -- the fori_loop/dynamic-slice formulation above.
+    * ``"auto"`` (default) -- ``"triton"`` when the default JAX backend is
+      a GPU at spec-construction time (the only backend that compiles the
+      kernel), else ``"xla"``.
     """
     if kernel == "auto":
-        import jax
-
-        kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if kernel not in ("pallas", "xla"):
-        raise ValueError(f"unknown banded kernel {kernel!r}")
+        kernel = "triton" if jax.default_backend() == "gpu" else "xla"
+    if kernel not in ("triton", "xla"):
+        raise ValueError(
+            f"unknown banded kernel {kernel!r} (valid: 'auto', 'triton', 'xla')"
+        )
 
     def assemble(mass, jac_band, c):
         from .linsol import DiagMass
@@ -222,38 +225,42 @@ def make_banded_solver(ml: int, mu: int, kernel: str = "auto") -> LinearSolverSp
             m_band = mass
         return m_band - c * jac_band
 
-    if kernel == "pallas":
+    if kernel == "triton":
         from . import pallas_banded
 
         def factor(a_band):
-            return (pallas_banded.band_lu_factor(a_band, ml, mu),)
+            if a_band.ndim == 2:
+                # one system: a one-member block, marked by a leading axis
+                f = pallas_banded.band_lu_factor(
+                    a_band[:, :, None], ml, mu, interpret=interpret
+                )
+                return (f[None],)
+            return (pallas_banded.band_lu_factor(
+                a_band, ml, mu, interpret=interpret
+            ),)
 
         def solve(factors, b):
             f = factors[0]
-            if b.ndim == 3 and f.ndim == 3:
-                # augmented rows (naug, n, B) against per-member factors:
-                # fold rows into the lane axis (one kernel launch)
-                naug, n, nbatch = b.shape
-                b2 = jnp.moveaxis(b, 0, -1).reshape(n, nbatch * naug)
-                fb = jnp.repeat(f[..., None], naug, axis=-1).reshape(
-                    f.shape[0], f.shape[1], nbatch * naug
+
+            def lockstep(v):  # v (n, B)
+                return pallas_banded.band_lu_solve(
+                    f, v, ml, mu, interpret=interpret
                 )
-                x = pallas_banded.band_lu_solve(fb, b2, ml, mu)
-                return jnp.moveaxis(
-                    x.reshape(n, nbatch, naug), -1, 0
-                ).astype(b.dtype)
-            if b.ndim == 2 and f.ndim == 2:
-                # disambiguate (n, k) lanes vs (naug, n) leading rows
-                n = f.shape[0] - mu
-                if b.shape[0] != n and b.shape[-1] == n:
-                    x = pallas_banded.band_lu_solve(f, b.T, ml, mu)
-                    return x.T.astype(b.dtype)
-            x = pallas_banded.band_lu_solve(f, b, ml, mu)
-            return x.astype(b.dtype)
+
+            if f.ndim == 4:  # one system, b is (..., n)
+                def one(v):
+                    return pallas_banded.band_lu_solve(
+                        f[0], v[:, None], ml, mu, interpret=interpret
+                    )[:, 0]
+
+                flat = b.reshape(-1, b.shape[-1])
+                return jax.vmap(one)(flat).reshape(b.shape)
+            if b.ndim == 3:  # augmented rows (naug, n, B)
+                return jax.vmap(lockstep)(b)
+            return lockstep(b)
 
         def placeholder(n, dtype):
-            band = jnp.zeros((ml + mu + 1, n), jnp.float64).at[mu, :].set(1.0)
-            return (pallas_banded.band_lu_factor(band, ml, mu),)
+            return factor(jnp.zeros((ml + mu + 1, n), dtype).at[mu].set(1.0))
 
     else:
 

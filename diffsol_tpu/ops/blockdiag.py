@@ -7,10 +7,10 @@ benchmarks: robertson_ode's ngroups layout is a 3x3-block-diagonal Jacobian
 (test_models/robertson_ode.rs duplicated groups), circuit netlists decompose
 into small independent components, etc.
 
-TPU design: a block-diagonal system IS an internal lockstep ensemble.  The
+Design: a block-diagonal system IS an internal lockstep ensemble.  The
 sparsity pattern's connected components become dense blocks laid out
-batch-LAST (nb, nb, K) -- tiny block dims on the cheap leading axes, the
-block count K on the 128-wide lanes -- factored by the same no-gather
+batch-LAST (nb, nb, K) -- tiny block dims on the leading axes, the
+block count K last and contiguous -- factored by the same no-gather
 masked-select LU as lockstep ensembles (ops/smalllu.lu_factor_batch_last).
 The Jacobian is built with nb cyclic JVP probes (coloring by
 position-within-block: columns of different blocks never share a row), so
@@ -172,9 +172,8 @@ def make_blockdiag_jac_lockstep(jac1, nb: int, K: int):
     """Lift a single-member blockdiag Jacobian (nb, nb, K) to the lockstep
     fused-batch layout (nb, nb, K*B): the block axis and the member axis
     are ONE batch-last axis, so a B-member ensemble of K-block problems
-    factors as K*B independent tiny LUs on the 128-wide lanes -- the
-    configuration where the TPU wins (reference per-batch CUDA LU over the
-    nbatch context, cuda/lu.rs:69-96, with the robertson_ode duplicated-
+    factors as K*B independent tiny LUs along the last axis (the
+    role of the reference per-batch CUDA LU over the nbatch context, cuda/lu.rs:69-96, with the robertson_ode duplicated-
     groups layout)."""
 
     def jac(t, Y, pb):

@@ -26,10 +26,7 @@ def pi_controller_raw(error_norm, prev_error_norm, pi_integral, pi_proportional,
     """
     out_dtype = jnp.result_type(error_norm)
     # all controller transcendentals run in f32: the result is a step-size
-    # factor clamped to ~[0.5, 2], far below f32 precision limits, and f64
-    # scalar pow/exp/log are SLOW emulated ops on TPU (they showed up as a
-    # dominant fixed per-step cost).  f32 also sidesteps TPU's f64 pow
-    # returning NaN for bases outside f32 range.
+    # factor clamped to ~[0.5, 2], far below f32 precision limits
     f32 = jnp.float32
     err32 = jnp.asarray(error_norm, f32)
     prev32 = jnp.asarray(prev_error_norm, f32)

@@ -7,9 +7,8 @@ materialized -- GMRES solves ``A x = b`` with the operator applied as
 
     A v = mass_mul(v) - c * jvp(rhs, y)(v)
 
-one rhs-JVP per Krylov iteration.  This is the tier that scales on TPU:
-JVPs are elementwise/stencil work (f64 fine under emulation), while a
-dense n>48 f64 LU cannot even compile there (no f64 LuDecomposition).
+one rhs-JVP per Krylov iteration: JVPs are elementwise/stencil work, and
+no n x n matrix is ever factored in the problem dtype.
 
 Used inside the steppers' frozen-Jacobian Newton: the "factorization" is
 the frozen linearization point (t, y, c) plus an optional TRIDIAGONAL
@@ -22,7 +21,7 @@ inner solve degrades the convergence RATE, not the answer (same contract
 as the f32 tiers).
 
 Reference role citation: diffsol has no Krylov tier (KLU/faer direct
-solvers only) -- this is TPU-motivated capability beyond the reference.
+solvers only) -- this is capability beyond the reference.
 """
 
 from __future__ import annotations
@@ -121,9 +120,7 @@ def make_krylov_solver(
     point itself.  ``precond``:
 
     * ``"lu32"`` (default): an f32 LU of the EXACT iteration matrix --
-      mixed-precision iterative refinement.  The factorization compiles on
-      TPU at any n (XLA's LuDecomposition is f32 there); GMRES in the
-      problem dtype recovers full accuracy in a handful of iterations
+      mixed-precision iterative refinement.  GMRES in the problem dtype recovers full accuracy in a handful of iterations
       (residual contraction ~ eps_f32 * cond(A) per apply).  Costs one
       n-column jacfwd + O(n^3) f32 factor per Jacobian refresh (amortized
       by the steppers' reuse policy) and O(n^2) f32 memory.
@@ -137,8 +134,7 @@ def make_krylov_solver(
     n-column ``jax.jacfwd`` -- the builder passes the colored-probe
     extractor (ops/coloring.py) when sparsity was detected, cutting the
     preconditioner assembly from n JVP columns to ncolors probes (the
-    program-size lever that lets ~1000-state DAE programs fit the TPU
-    backend; reference role: KLU's symbolic analysis reuse,
+    program-size lever for ~1000-state DAE programs; reference role: KLU's symbolic analysis reuse,
     suitesparse/klu.rs:60-120).
     """
     if precond not in ("lu32", "tridiag", "none"):

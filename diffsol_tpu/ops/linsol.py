@@ -3,7 +3,7 @@
 The reference offers LU backends behind a ``LinearSolver`` trait
 (set_sparsity -> set_linearisation -> solve_in_place; reference
 crates/diffsol-la/src/linear_solver/mod.rs:19): dense LU (nalgebra/faer/
-cuSOLVER) and sparse LU (faer sparse, KLU).  On TPU the equivalents are
+cuSOLVER) and sparse LU (faer sparse, KLU).  Here the equivalents are
 
 * ``dense``  -- LU with partial pivoting via XLA (``jax.scipy.linalg``),
   batched for ensembles with ``vmap``;
@@ -68,8 +68,7 @@ def _dense_assemble(mass, jac, c):
 
 
 def _dense_factor(a):
-    # unrolled jnp LU for small n: works in f64 on TPU (XLA's LuDecomposition
-    # is f32-only there) and compiles to straight-line batched code
+    # unrolled jnp LU for small n: compiles to straight-line batched code
     if a.shape[-1] <= smalllu.MAX_UNROLL_N:
         return smalllu.lu_factor(a)
     return jsl.lu_factor(a)
@@ -113,9 +112,8 @@ def _dense_f32_solve(factors, b):
 # f32 while the residuals/error tests stay in the problem dtype.  The LU is
 # only a preconditioner for the Newton iteration, whose convergence control
 # (ops/newton.py) measures the true-dtype update -- accuracy is governed by
-# the f64 residual, speed by the f32 factorization.  On TPU (f64 emulated in
-# software) this trades a slightly slower Newton convergence rate for much
-# cheaper linear algebra.
+# the f64 residual, speed by the f32 factorization: a slightly slower
+# Newton convergence rate for cheaper linear algebra.
 DENSE_F32 = LinearSolverSpec(
     name="dense_f32",
     assemble=_dense_assemble,

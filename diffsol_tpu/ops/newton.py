@@ -76,7 +76,7 @@ def newton_solve(
         niter = niter + 1
 
         # convergence-rate bookkeeping in f32: only feeds accept/diverge
-        # decisions and the eta heuristic (f64 scalar pow is slow on TPU)
+        # decisions and the eta heuristic
         f32 = jnp.float32
         nrm32 = jnp.asarray(nrm, f32)
         # first iteration: eta = max(eta_prev, 1e4*eps)^0.8

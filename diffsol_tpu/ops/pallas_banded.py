@@ -1,38 +1,27 @@
-"""Pallas TPU kernels for the no-pivot banded LU (factor + solve).
+"""Pallas kernels (Triton route) for the no-pivot banded LU: factor + solve.
 
 Role of the reference's sparse direct solvers on method-of-lines Jacobians
 (reference crates/diffsol-la/src/linear_solver/suitesparse/klu.rs:1-245,
 faer/sparse_lu.rs, cuda/lu.rs:59-140).  The XLA formulation in
-:mod:`diffsol_tpu.ops.banded` (fori_loop + dynamic_update_slice per column)
-is correct but emits thousands of lane-dynamic slice ops, which drives
-whole-program TPU compiles past 20 minutes (docs/round1_status.md).  Here
-the ENTIRE factorization/substitution runs inside one Pallas kernel with the
-band resident in VMEM: one kernel launch, a hardware fori loop over columns,
-and only static-shape vector ops per iteration.
+:mod:`diffsol_tpu.ops.banded` runs a ``fori_loop`` over the n columns with
+a ``dynamic_update_slice`` per column; on a GPU every iteration of that
+loop is a handful of kernel launches.  Here one Triton program per block of
+``BLOCK`` ensemble members runs the whole column loop, so a factorization
+or a solve is one launch.
 
-Layout: kernels work on COLUMN-LEADING band arrays ``(ncols, nb, B)`` --
-the sequential column index is the leading (untiled) axis so the per-column
-dynamic index is cheap address arithmetic, the ``nb`` diagonals sit on the
-sublane axis with static offsets, and ensemble members ride the 128-wide
-lanes.  (The first cut used ``(nb, ncols, B)`` with dynamic SUBLANE slices:
-~28 us per column iteration; this layout is ~20x faster.)  Entry points
-accept the tier's standard diagonal-major band ``band[d, j] = A[j+d-mu, j]``
-and transpose once at the boundary.
+Layout: the lockstep batch-last band ``(nb, n, B)`` (``band[d, j] =
+A[j + d - mu, j]``, members last and contiguous).  Every load and store is
+one ``(BLOCK,)`` vector across the members of the block at a static band
+row and a (dynamic) column, so each lane only ever touches its own member:
+the per-member elimination is sequential, the members are the parallel
+axis, and nothing is shared between programs (no order between blocks is
+assumed).  Members are padded to a multiple of ``BLOCK`` with identity
+systems; columns are padded by ``mu`` (unit diagonal) so the update window
+never runs off the end, as in the XLA form.
 
-Precision: Mosaic (Pallas TPU) has no f64, so these kernels run in f32.
-Used as the Newton iteration-matrix factorization this is a PRECONDITIONER
-(same trade as the ``dense_f32`` tier, ops/linsol.py): convergence control
-and error tests measure full-precision residuals, so solver accuracy is
-governed by the problem dtype, convergence speed by the f32 factorization.
-The f64 XLA path remains available (``make_banded_solver(..., kernel="xla")``).
-
-No pivoting: valid for the diagonally (semi-)dominant ``M - c*J`` matrices
-implicit steppers build from parabolic MOL operators (the trade KLU does
-not make; same restriction as LAPACK's dgtsv-style fast paths).
-
-Shapes: single system ``(nb, n)`` or lockstep batch-last ``(nb, n, B)``;
-the shared sequential column loop matches lockstep semantics exactly (one
-factorization program for all members).
+Arithmetic is in the band's own dtype (f64 included).  No pivoting: valid
+for the diagonally (semi-)dominant ``M - c*J`` matrices implicit steppers
+build from parabolic MOL operators, the same restriction as the XLA form.
 """
 
 from __future__ import annotations
@@ -42,124 +31,138 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pltriton
+
+# members per program: one warp, one member per lane
+BLOCK = 32
 
 
-def _use_interpret():
-    return jax.default_backend() != "tpu"
+def _sync(interpret: bool):
+    # the lanes of a block never read each other's members, but a barrier
+    # per column keeps the global-memory updates of one column ordered
+    # before the next column's loads on every layout Triton may choose
+    if not interpret:
+        pltriton.debug_barrier()
 
 
-def _factor_kernel(n, ml, mu, band_ref, out_ref):
-    # refs are (ncols, nb, B): column-leading, diagonals on sublanes
-    out_ref[...] = band_ref[...]
+# Each column step issues its independent loads before the stores that
+# depend on them: loads cannot move past a store to the same buffer, so
+# grouping them pays one memory latency per group instead of one per entry.
 
-    def body(k, carry):
-        pivot = out_ref[k, mu, :]  # (B,)
-        inv = 1.0 / pivot
-        if ml > 0:
-            l = out_ref[k, mu + 1 : mu + 1 + ml, :] * inv[None]  # (ml, B)
-            out_ref[k, mu + 1 : mu + 1 + ml, :] = l
-            for dj in range(1, mu + 1):
-                u = out_ref[k + dj, mu - dj, :]  # (B,)
-                blk = out_ref[k + dj, mu + 1 - dj : mu + 1 + ml - dj, :]
-                out_ref[k + dj, mu + 1 - dj : mu + 1 + ml - dj, :] = (
-                    blk - l * u[None]
-                )
+
+def _factor_kernel(n, ml, mu, interpret, a_ref, o_ref):
+    del a_ref  # aliased with o_ref: the factorization runs in place
+
+    def column(k, carry):
+        inv = 1.0 / o_ref[mu, k, :]
+        ls = [o_ref[mu + i, k, :] * inv for i in range(1, ml + 1)]
+        for i in range(1, ml + 1):
+            o_ref[mu + i, k, :] = ls[i - 1]
+        for dj in range(1, mu + 1):
+            # column k+dj: U[k, k+dj] and the entries below it, rows k+1..
+            u = o_ref[mu - dj, k + dj, :]
+            blk = [o_ref[mu + i - dj, k + dj, :] for i in range(1, ml + 1)]
+            for i in range(1, ml + 1):
+                o_ref[mu + i - dj, k + dj, :] = blk[i - 1] - ls[i - 1] * u
+        _sync(interpret)
         return carry
 
-    jax.lax.fori_loop(jnp.int32(0), jnp.int32(n), body, jnp.int32(0))
+    jax.lax.fori_loop(0, n, column, 0)
 
 
-def _solve_kernel(n, ml, mu, fband_ref, b_ref, x_ref):
-    # fband_ref (ncols, nb, B); b_ref/x_ref (npadx, 1, B)
-    x_ref[...] = b_ref[...]
+def _solve_kernel(n, ml, mu, interpret, f_ref, b_ref, x_ref):
+    del b_ref  # aliased with x_ref: substitution runs in place
 
     if ml > 0:
-        def fwd(k, carry):
-            l = fband_ref[k, mu + 1 : mu + 1 + ml, :]  # (ml, B)
-            bk = x_ref[k, 0, :]  # (B,)
-            blk = x_ref[pl.ds(k + 1, ml), 0, :]  # (ml, B)
-            x_ref[pl.ds(k + 1, ml), 0, :] = blk - l * bk[None]
+        def forward(k, carry):
+            xk = x_ref[k, :]
+            ls = [f_ref[mu + i, k, :] for i in range(1, ml + 1)]
+            xs = [x_ref[k + i, :] for i in range(1, ml + 1)]
+            for i in range(1, ml + 1):
+                x_ref[k + i, :] = xs[i - 1] - ls[i - 1] * xk
+            _sync(interpret)
             return carry
 
-        jax.lax.fori_loop(jnp.int32(0), jnp.int32(n - 1), fwd, jnp.int32(0))
+        jax.lax.fori_loop(0, n, forward, 0)
 
-    def bwd(i, carry):
-        k = jnp.int32(n - 1) - i
-        diag = fband_ref[k, mu, :]  # (B,)
-        acc = x_ref[k, 0, :]
-        if mu > 0:
-            # u_dj = fband[k+dj, mu-dj]: one dynamic-leading block read of
-            # columns k+1..k+mu, rows 0..mu-1, then the anti-diagonal
-            ublk = fband_ref[pl.ds(k + 1, mu), 0:mu, :]  # (mu, mu, B)
-            xblk = x_ref[pl.ds(k + 1, mu), 0, :]  # (mu, B)
-            for dj in range(1, mu + 1):
-                acc = acc - ublk[dj - 1, mu - dj, :] * xblk[dj - 1, :]
-        x_ref[k, 0, :] = acc / diag
+    def backward(j, carry):
+        k = n - 1 - j
+        acc = x_ref[k, :]
+        us = [f_ref[mu - dj, k + dj, :] for dj in range(1, mu + 1)]
+        xs = [x_ref[k + dj, :] for dj in range(1, mu + 1)]
+        for dj in range(1, mu + 1):
+            acc = acc - us[dj - 1] * xs[dj - 1]
+        x_ref[k, :] = acc / f_ref[mu, k, :]
+        _sync(interpret)
         return carry
 
-    jax.lax.fori_loop(jnp.int32(0), jnp.int32(n), bwd, jnp.int32(0))
+    jax.lax.fori_loop(0, n, backward, 0)
 
 
-def _as3d(a):
-    """(nb, n) -> (nb, n, 1); (nb, n, B) unchanged.  Returns (arr, had_batch)."""
-    if a.ndim == 2:
-        return a[:, :, None], False
-    if a.ndim == 3:
-        return a, True
-    raise ValueError(f"banded pallas path expects 2-D or 3-D, got {a.shape}")
+def _call(kernel, out_shape, block_shapes, interpret, aliases):
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shape,
+        grid=(out_shape.shape[-1] // BLOCK,),
+        in_specs=[
+            pl.BlockSpec(s, lambda i, r=len(s): (0,) * (r - 1) + (i,))
+            for s in block_shapes
+        ],
+        out_specs=pl.BlockSpec(
+            out_shape.shape[:-1] + (BLOCK,),
+            lambda i, r=len(out_shape.shape): (0,) * (r - 1) + (i,),
+        ),
+        input_output_aliases=aliases,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name=kernel.func.__name__.strip("_"),
+    )
 
 
-def band_lu_factor(band, ml: int, mu: int):
-    """Factor a band array (nb, n[, B]) in f32 inside one Pallas kernel.
+def _padded_members(nbatch: int) -> int:
+    return -(-nbatch // BLOCK) * BLOCK
 
-    Returns the factored COLUMN-LEADING band (n + mu, nb[, B]) float32
-    (padded columns carry a unit diagonal so update windows never run off
-    the end; L multipliers below the main-diagonal row, U in/above it,
-    LAPACK gbtrf-style).
+
+@functools.partial(jax.jit, static_argnames=("ml", "mu", "interpret"))
+def band_lu_factor(band, ml: int, mu: int, interpret: bool = False):
+    """Factor a batch-last band array ``(nb, n, B)`` without pivoting.
+
+    Returns the factored band padded to ``(nb, n + mu, B')`` with ``B'``
+    the members rounded up to a multiple of :data:`BLOCK`: L multipliers
+    below the main-diagonal row ``mu``, U in and above it (LAPACK
+    gbtrf-style).  Pass the result to :func:`band_lu_solve`.
     """
-    nb = ml + mu + 1
-    assert band.shape[0] == nb, (band.shape, nb)
-    band3, had_batch = _as3d(band.astype(jnp.float32))
-    n = band3.shape[1]
-    nbatch = band3.shape[2]
-    colmaj = jnp.swapaxes(band3, 0, 1)  # (n, nb, B)
-    pad = jnp.zeros((mu, nb, nbatch), jnp.float32)
-    bandp = jnp.concatenate([colmaj, pad], axis=0)
-    if mu > 0:
-        bandp = bandp.at[n:, mu, :].set(1.0)
-
-    out = pl.pallas_call(
-        functools.partial(_factor_kernel, n, ml, mu),
-        out_shape=jax.ShapeDtypeStruct(bandp.shape, jnp.float32),
-        interpret=_use_interpret(),
-    )(bandp)
-    return out if had_batch else out[:, :, 0]
+    nb, n, nbatch = band.shape
+    if nb != ml + mu + 1:
+        raise ValueError(f"band has {nb} rows, expected ml+mu+1={ml + mu + 1}")
+    bp = _padded_members(nbatch)
+    # padded columns and padded members carry a unit diagonal
+    ap = jnp.zeros((nb, n + mu, bp), band.dtype).at[mu].set(1.0)
+    ap = ap.at[:, :n, :nbatch].set(band)
+    kernel = functools.partial(_factor_kernel, n, ml, mu, interpret)
+    return _call(
+        kernel,
+        jax.ShapeDtypeStruct(ap.shape, ap.dtype),
+        [ap.shape[:-1] + (BLOCK,)],
+        interpret,
+        {0: 0},
+    )(ap)
 
 
-def band_lu_solve(fband, b, ml: int, mu: int):
-    """Solve with a factored band from :func:`band_lu_factor`; b (n[, B])."""
-    if fband.ndim == 2:
-        fband3 = fband[:, :, None]
-    else:
-        fband3 = fband
-    if b.ndim == 1:
-        b2 = b.astype(jnp.float32)[:, None]
-    else:
-        b2 = b.astype(jnp.float32)
-    n = b2.shape[0]
-    nbatch = b2.shape[1]
-    padlen = max(ml, mu, 1)
-    bp = jnp.concatenate(
-        [b2, jnp.zeros((padlen, nbatch), jnp.float32)], axis=0
-    )[:, None, :]  # (npadx, 1, B)
-    # broadcast a single factorization over many right-hand sides
-    if fband3.shape[2] == 1 and nbatch > 1:
-        fband3 = jnp.broadcast_to(fband3, fband3.shape[:2] + (nbatch,))
-
-    x = pl.pallas_call(
-        functools.partial(_solve_kernel, n, ml, mu),
-        out_shape=jax.ShapeDtypeStruct(bp.shape, jnp.float32),
-        interpret=_use_interpret(),
-    )(fband3, bp)
-    x = x[:n, 0, :]
-    return x if (b.ndim == 2) else x[:, 0]
+@functools.partial(jax.jit, static_argnames=("ml", "mu", "interpret"))
+def band_lu_solve(factors, b, ml: int, mu: int, interpret: bool = False):
+    """Solve with factors from :func:`band_lu_factor`; ``b`` is (n, B)."""
+    n, nbatch = b.shape
+    nb, _, bp = factors.shape
+    rows = n + max(ml, mu, 1)
+    bpad = jnp.zeros((rows, bp), factors.dtype).at[:n, :nbatch].set(b)
+    kernel = functools.partial(_solve_kernel, n, ml, mu, interpret)
+    x = _call(
+        kernel,
+        jax.ShapeDtypeStruct(bpad.shape, bpad.dtype),
+        [factors.shape[:-1] + (BLOCK,), (rows, BLOCK)],
+        interpret,
+        {1: 0},
+    )(factors, bpad)
+    return x[:n, :nbatch]

@@ -1,16 +1,12 @@
 """Batched small-matrix dense LU with partial pivoting, in pure jnp.
 
-Replaces XLA's LuDecomposition custom call for the solver hot path.  Two
-reasons (both TPU-driven):
+Replaces XLA's LuDecomposition custom call for the solver hot path: for
+the small systems ODE solvers factorize (n = 2..~40, batched over
+10k-member ensembles), an unrolled elimination compiles to straight-line
+batched code with no dynamic control flow.  Whether it beats the library
+LU at each (n, B) on the GPU is not measured yet.
 
-* TPU XLA implements LuDecomposition only for f32/c64 -- stiff-tolerance
-  f64 solves would fail to compile;
-* for the small systems ODE solvers factorize (n = 2..~40, batched over
-  10k-member ensembles), an unrolled elimination compiles to straight-line
-  batched VPU code with no dynamic control flow, which XLA fuses far better
-  than the generic expander.
-
-This is the TPU equivalent of the reference's dense LU backends
+This is the equivalent of the reference's dense LU backends
 (reference crates/diffsol-la/src/linear_solver/nalgebra/lu.rs, faer/lu.rs,
 cuda/lu.rs -- the latter loops cuSOLVER getrf over the batch; here the batch
 is a vectorized leading axis).
@@ -92,12 +88,10 @@ def lu_solve(factors, b):
 # batch-last variant for species-major lockstep ensembles
 # --------------------------------------------------------------------------
 #
-# TPU tiling pads the LAST TWO dims of every array to (8, 128): a
-# member-major batch of small matrices (B, n, n) bloats to (B, 8, 128) --
-# 280x the useful data for n=3.  The batch-last layout (n, n, B) keeps the
-# huge ensemble axis in the lanes and the tiny matrix dims as cheap leading
-# axes.  Pivoting is done with where/select masks (no gathers, which are
-# slow on TPU).
+# The batch-last layout (n, n, B) keeps the huge ensemble axis last and
+# contiguous and the tiny matrix dims as leading axes, so every scalar of
+# the elimination is one contiguous vector across the members.  Pivoting
+# is done with where/select masks (no gathers).
 
 
 def lu_factor_batch_last(a):

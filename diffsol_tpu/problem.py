@@ -17,7 +17,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
-import jax
 import jax.numpy as jnp
 
 from ._pytree import pytree_dataclass
@@ -359,9 +358,9 @@ class OdeBuilder:
             )
         # The reference's DiffSL bridge always extracts sparsity and holds a
         # JacobianColoring per operator (diffsl.rs:38-330).  Mirror that for
-        # large models: above the dense-LU-on-TPU limit the auto-router
-        # (blockdiag -> banded -> krylov) is the only deployable tier, so
-        # opt in automatically unless the user chose a solver explicitly.
+        # large models: at n >= 256 a dense Jacobian costs n JVPs per
+        # evaluation, so the auto-router (blockdiag -> banded -> colored
+        # dense) takes over unless the user chose a solver explicitly.
         if (
             not self._use_coloring
             and self._rhs_jac is None
@@ -396,10 +395,11 @@ class OdeBuilder:
     def dtype(self, d):
         """Solve precision (reference ScalarType{F32,F64},
         diffsol-c/src/scalar_type.rs).  Default: the ambient float width
-        (f64 under jax x64).  On TPU, f32 avoids the emulated-f64 cost --
-        the init/rhs/mass/... callables are wrapped so their outputs (and
-        all tolerance/params leaves) carry this dtype regardless of what
-        the user closures return.
+        (f64 under jax x64).  The init/rhs/mass/... callables are wrapped
+        so their outputs (and all tolerance/params leaves) carry this dtype
+        regardless of what the user closures return; under float32 the
+        solver's matrix products run at full precision
+        (:mod:`diffsol_tpu.precision`).
         """
         self._dtype = jnp.dtype(d)
         return self
@@ -499,7 +499,7 @@ class OdeBuilder:
             # 1. independent dense blocks (robertson_ode ngroups layouts,
             #    circuit components): exact structure, zero fill-in, pivoted
             #    batch-last LU -- safe for stiff blocks where the no-pivot
-            #    f32 band kernel is not;
+            #    band LU is not;
             # 2. narrow band (MOL stencils): banded probes + band LU;
             # 3. colored-probe dense fallback.
             blk_rows, blk_cols = rows, cols
@@ -524,21 +524,6 @@ class OdeBuilder:
             elif n >= 8 and ml + mu + 1 <= max(n // 2, 1):
                 rhs_jac_f = make_banded_jac(rhs_f, ml, mu)
                 linear_solver = make_banded_solver(ml, mu)
-            elif n >= 256 and jax.default_backend() == "tpu":
-                # large unstructured pattern ON TPU: matrix-free
-                # Newton-Krylov (a dense n>48 f64 LU cannot compile on
-                # TPU; colored probes would still feed an O(n^3)
-                # factorization).  The lu32 PRECONDITIONER assembly does
-                # use the colored probes: ncolors JVPs instead of n
-                # jacfwd columns.  On CPU the dense colored fallback
-                # below is both legal (LAPACK f64 LU) and much faster
-                # than GMRES at this size, so the route is backend-aware.
-                from .ops.krylov import make_krylov_jac, make_krylov_solver
-
-                colors, ncolors = greedy_color(rows, cols, n, n)
-                cj = make_colored_jac(rhs_f, rows, cols, colors, ncolors, n)
-                linear_solver = make_krylov_solver(rhs_f, jac_fn=cj)
-                rhs_jac_f = make_krylov_jac()
             else:
                 colors, ncolors = greedy_color(rows, cols, n, n)
                 rhs_jac_f = make_colored_jac(

@@ -1,6 +1,6 @@
 """Variable-order BDF/NDF stepper (orders 1-5, ode15s/SciPy style).
 
-TPU-native re-design of the reference BDF solver
+Re-design of the reference BDF solver
 (reference crates/diffsol/src/ode_solver/bdf.rs:111-1650, bdf_state.rs,
 op/bdf.rs): the entire adaptive step -- prediction from the backward
 difference matrix D, Newton correction against the frozen LU of
@@ -39,6 +39,7 @@ from .._pytree import pytree_dataclass
 from .consistent_ic import algebraic_mask, make_consistent
 from .rk_common import Stats
 from .state import initial_state, initial_step_size
+from ..precision import highest_precision
 
 MAX_ORDER = 5
 ND = MAX_ORDER + 3  # rows of the difference matrix D
@@ -124,16 +125,13 @@ def _compute_ru(order, factor, dtype):
 
 
 # The three D-matrix transforms below are UNROLLED over the ND=8 static rows
-# as masked elementwise FMAs instead of tensordots.  On TPU, an f64
-# contraction over the leading row axis of an (8, n, B) array lowers to
-# relayout transposes + an emulated-f64 dot (measured 180-260 us each at a
-# 10k-member f64 ensemble -- the dominant cost of the whole BDF step); the
-# unrolled row chains fuse into a couple of cheap VPU kernels.
+# as masked elementwise FMAs instead of tensordots over the leading row axis
+# of an (8, n, B) array: the row chains fuse into a few elementwise kernels.
 
 
 def _apply_ru(ru, D):
-    """D <- RU^T @ D as ND row-broadcast FMAs (fuses on the VPU; an f64
-    tensordot here costs ~250 us at a 10k ensemble, this ~30 us)."""
+    """D <- RU^T @ D as ND row-broadcast FMAs (one fused elementwise
+    kernel instead of a contraction over the leading row axis)."""
     shape = (ND,) + (1,) * (D.ndim - 1)
     acc = ru[0].reshape(shape) * D[0]
     for i in range(1, ND):
@@ -340,10 +338,10 @@ class BdfSolver:
         ``jac_pred`` a re-factorization of ``M - c*J`` with the stale J.
         Callers compute the predicates from the reference kind tables.
 
-        TPU rationale: a lax.cond whose branches return the whole solver
-        carry copies megabytes per step attempt (measured ~26 us per cond at
-        a 10k-member ensemble); paying only the (jac, factors) copy makes the
-        common no-update path nearly free.
+        Rationale: a lax.cond whose branches return the whole solver carry
+        copies megabytes per step attempt at a 10k-member ensemble; paying
+        only the (jac, factors) copy makes the common no-update path
+        nearly free.
         """
         p = self.problem
         do_any = rhs_pred | jac_pred
@@ -391,6 +389,7 @@ class BdfSolver:
         return jac, factors, stats, eta, ssj, ssrj, c_last
 
     # ------------------------------------------------------------------
+    @highest_precision
     def init_state(self, params=None) -> BdfState:
         p = self.problem
         params = p.params if params is None else params
@@ -526,17 +525,16 @@ class BdfSolver:
 
         return residual
 
+    @highest_precision
     def step(self, state: BdfState, params=None) -> BdfState:
         """One adaptive BDF step (bdf.rs:1277-1650).
 
-        TPU program-structure note: the step is STRAIGHT-LINE traced
+        Program-structure note: the step is STRAIGHT-LINE traced
         arithmetic with `jnp.where` scalar control; `lax.cond` appears only
         where it skips genuinely heavy work (Jacobian refresh / LU refactor,
         D-matrix rescaling, order-selection norms) and each such cond carries
-        the minimal payload.  Measured on a v5e at a 10k-member ensemble,
-        whole-carry conds cost ~26 us each and unfused ops ~3 us, so the
-        branch-heavy formulation of the reference costs ~1 ms/step in pure
-        control-flow overhead; this formulation removes most of it.
+        the minimal payload, so the step is few, large kernels rather than
+        the reference's branch-heavy control flow.
         """
         p = self.problem
         cfg = self.config

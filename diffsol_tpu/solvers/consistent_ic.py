@@ -114,7 +114,7 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
         # The packed IC residual inherits the rhs band structure (plus the
         # in-band mass diagonal), so factor it through the problem's banded
         # tier: ml+mu+1 cyclic JVP probes for ANY state size / batch, and no
-        # dense O(n^3) LU (which cannot even compile at f64 on TPU).
+        # dense O(n^3) LU.
         ml, mu = spec.meta[:2]
         nc = ml + mu + 1
         n_state = y.shape[0]
@@ -147,7 +147,6 @@ def make_consistent(problem, params, y, dy, is_alg, t=None):
     elif spec.name.startswith("krylov"):
         # matrix-free problems keep the IC solve matrix-free too: GMRES on
         # the IC-residual JVP with the 3-probe tridiagonal preconditioner
-        # (a dense n>48 f64 LU cannot compile on TPU)
         from ..ops.krylov import make_matfree_residual_solver
 
         factorize, lin_solve_dense = make_matfree_residual_solver(residual)

@@ -1,6 +1,6 @@
 """Adaptive explicit Runge-Kutta stepper (TSIT45 and custom tableaus).
 
-TPU-native equivalent of the reference explicit RK solver
+JAX equivalent of the reference explicit RK solver
 (reference crates/diffsol/src/ode_solver/explicit_rk.rs:75-250 `ExplicitRk`
 on the shared core runge_kutta.rs): one adaptive step is a pure function
 ``state -> state`` whose step-rejection loop is a ``lax.while_loop`` with the
@@ -27,10 +27,12 @@ from ..ops.controller import clamp_factor, pi_controller_raw
 from ..ops.rootfind import check_root
 from ..problem import OdeProblem, SolverConfig
 from .rk_common import (
-    RkState, Stats, interp_dy, interp_out, interp_sens, interp_y, tstop_check,
+    RkState, Stats, interp_dy, interp_out, interp_sens, interp_y, lincomb,
+    tstop_check,
 )
 from .state import _flag_past_tstop, initial_state, initial_step_size
 from .tableau import Tableau, tsit45
+from ..precision import highest_precision
 
 
 class ErkSolver:
@@ -82,6 +84,7 @@ class ErkSolver:
         return self.tableau.order
 
     # ------------------------------------------------------------------
+    @highest_precision
     def init_state(self, params=None) -> RkState:
         p = self.problem
         params = p.params if params is None else params
@@ -154,14 +157,13 @@ class ErkSolver:
         y_i = y
         k_i = dy
         for i in range(1, s):
-            arow = jnp.asarray(a[i, :i], dtype)
-            y_i = y + jnp.tensordot(arow, jnp.stack(diff_rows[:i]), axes=1)
+            y_i = y + lincomb(a[i, :i], diff_rows)
             t_i = t + c[i] * h
             k_i = p.eqn.rhs(t_i, y_i, params)
             diff_rows.append(h * k_i)
             if sens:
                 # stage rows: s + sum_j a_ij sdiff_j (stacked axis 0 = stage)
-                s_i = s_rows + jnp.tensordot(arow, jnp.stack(sdiff_rows[:i]), axes=1)
+                s_i = s_rows + lincomb(a[i, :i], sdiff_rows)
                 dS_i = self.aug.rhs(t_i, y_i, params, s_i)
                 sdiff_rows.append(h * dS_i)
             if integrate_out:
@@ -182,6 +184,7 @@ class ErkSolver:
             return diff, gdiff, y_i, k_i, dg_new, sdiff, s_i, dS_i
         return diff, gdiff, y_i, k_i, dg_new, None, None, None
 
+    @highest_precision
     def step(self, state: RkState, params=None) -> RkState:
         """One adaptive step (explicit_rk.rs:196-243)."""
         p = self.problem
@@ -189,8 +192,7 @@ class ErkSolver:
         tab = self.tableau
         params = p.params if params is None else params
         dtype = state.y.dtype
-        d_vec = jnp.asarray(np.asarray(tab.d), dtype)
-        b_vec = jnp.asarray(np.asarray(tab.b), dtype)
+        d_np = np.asarray(tab.d)
 
         # state-modified handling: refresh root-function values (start_step)
         if p.eqn.root is not None:
@@ -235,18 +237,18 @@ class ErkSolver:
                     ds_rows=ds0,
                 )
             )
-            err_vec = jnp.tensordot(d_vec, diff, axes=1)
+            err_vec = lincomb(d_np, diff)
             err, wm = squared_norm_and_worst(
                 err_vec, state.y, p.atol, p.rtol, self._nb
             )
             if p.output_in_error_control():
-                gerr = jnp.tensordot(d_vec, gdiff, axes=1)
+                gerr = lincomb(d_np, gdiff)
                 err = jnp.maximum(
                     err,
                     squared_norm(gerr, state.g, p.out_atol, p.out_rtol, self._nb),
                 )
             if self.sens and p.sens_in_error_control():
-                serr_rows = jnp.tensordot(sdiff, d_vec, axes=[[1], [0]])
+                serr_rows = lincomb(d_np, jnp.moveaxis(sdiff, 1, 0))
                 s_errs = jax.vmap(
                     lambda sd, sv: squared_norm(
                         sd, sv, self.aug.atol(p), self.aug.rtol(p), self._nb
@@ -312,7 +314,10 @@ class ErkSolver:
         )
 
         failed = status < 0
-        g_new = state.g + jnp.tensordot(b_vec, gdiff, axes=1) if p.integrate_out else state.g
+        g_new = (
+            state.g + lincomb(np.asarray(tab.b), gdiff)
+            if p.integrate_out else state.g
+        )
         t_new = state.t + h
 
         sens_upd = {}

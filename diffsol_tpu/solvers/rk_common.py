@@ -1,6 +1,6 @@
 """Shared Runge-Kutta machinery (state, interpolation, tstop, stats).
 
-TPU-native re-design of the reference shared RK core
+Re-design of the reference shared RK core
 (reference crates/diffsol/src/ode_solver/runge_kutta.rs:32-1421 `Rk` and
 sdirk_state.rs `RkState`): solver state is a pytree carried through one
 jitted ``lax.while_loop`` per solve; stage arrays have static shape
@@ -123,6 +123,20 @@ def tableau_arrays(tab: Tableau, dtype):
 # --------------------------------------------------------------------------
 # dense output
 # --------------------------------------------------------------------------
+
+
+def lincomb(coeffs, rows):
+    """``sum_j coeffs[j] * rows[j]`` for static tableau coefficients, as
+    unrolled scalar multiply-adds: one fused elementwise kernel instead of a
+    matrix product with a small constant vector (which XLA's GPU compiler
+    mis-slices when the rows are sharded across devices)."""
+    terms = [float(c) * rows[j] for j, c in enumerate(coeffs) if c != 0.0]
+    if not terms:
+        return jnp.zeros_like(rows[0])
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
+    return out
 
 
 def _beta_poly(tab: Tableau, theta, dtype, deriv: bool):

@@ -4,7 +4,7 @@ The reference defines the stochastic operator interface and equation tier
 (reference crates/diffsol/src/op/stoch.rs `StochOp` with noise kinds
 Zero/Scalar/Diagonal/Additive classified by probing, ode_equations
 `OdeEquationsStoch`) but ships NO stepper (ode_solver/sde.rs is a 7-line
-marker trait).  The TPU build completes the capability: fixed-step
+marker trait).  This package completes the capability: fixed-step
 Euler-Maruyama and (diagonal-noise) Milstein schemes over
 
     dy = f(t, y, p) dt + g(t, y, p) dW

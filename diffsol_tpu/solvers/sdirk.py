@@ -1,6 +1,6 @@
 """SDIRK/ESDIRK stepper (TR-BDF2, ESDIRK34, custom tableaus).
 
-TPU-native equivalent of the reference SDIRK solver
+JAX equivalent of the reference SDIRK solver
 (reference crates/diffsol/src/ode_solver/sdirk.rs:90-560 on the shared RK
 core runge_kutta.rs, stage operator op/sdirk.rs): each implicit stage solves
 
@@ -36,6 +36,7 @@ from .rk_common import (
 )
 from .state import _flag_past_tstop, initial_state, initial_step_size
 from .tableau import Tableau, tr_bdf2
+from ..precision import highest_precision
 
 # policy kinds (jacobian_update.rs)
 _STEP_SUCCESS = 0
@@ -202,6 +203,7 @@ class SdirkSolver:
         return st
 
     # ------------------------------------------------------------------
+    @highest_precision
     def init_state(self, params=None) -> RkState:
         p = self.problem
         params = p.params if params is None else params
@@ -292,6 +294,7 @@ class SdirkSolver:
         cc = (c[i] - c[i - 2]) / (c[i - 1] - c[i - 2])
         return (1.0 + cc) * sdiff[:, i - 1] - cc * sdiff[:, i - 2]
 
+    @highest_precision
     def step(self, state: RkState, params=None) -> RkState:
         """One adaptive SDIRK step (sdirk.rs:409-545)."""
         p = self.problem

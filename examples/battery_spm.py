@@ -19,11 +19,12 @@ import jax
 import jax.numpy as jnp
 
 jax.config.update("jax_enable_x64", True)
-# whole-solve compiles dominate; cache them across runs
-jax.config.update("jax_compilation_cache_dir", "/tmp/diffsol_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 import diffsol_tpu as dt
+from diffsol_tpu.compile_cache import configure_compile_cache
+
+# whole-solve compiles dominate; cache them across runs
+configure_compile_cache()
 
 SPM_PATH = "/root/reference/book/src/primer/src/spm.ds"
 

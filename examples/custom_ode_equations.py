@@ -3,7 +3,7 @@
 Equivalent of reference examples/custom-ode-equations (src/my_equations.rs
 et al.): the reference implements the OdeEquations trait family by hand --
 rhs op with an explicit jac_mul, mass op, init op, root op, out op -- and
-feeds it to OdeBuilder::build_from_eqn.  The TPU-native analog constructs
+feeds it to OdeBuilder::build_from_eqn.  The JAX analog constructs
 :class:`diffsol_tpu.OdeEquations` directly with an explicit ``rhs_jac``
 (overriding the default jacfwd) and assembles the :class:`OdeProblem`
 dataclass without the builder.

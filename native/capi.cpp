@@ -236,7 +236,7 @@ extern "C" void diffsol_ode_free(int64_t ode) {
     Py_XDECREF(r);
 }
 
-/* TPU-build extension (no ode_c.rs analog): drop jax's in-memory compiled
+/* Extension (no ode_c.rs analog): drop jax's in-memory compiled
  * executables.  Long-lived embedding processes that build many models
  * should call this periodically -- the XLA CPU compiler crashes once the
  * live executable set grows unboundedly (tests/conftest.py documents the

@@ -55,7 +55,7 @@ int64_t diffsol_ode_new_external(int matrix_type, int linear_solver,
                                  const void *mass_state_deps,
                                  size_t mass_state_deps_len);
 void diffsol_ode_free(int64_t ode);
-/* TPU-build extension: drop in-memory compiled executables (call
+/* Extension: drop in-memory compiled executables (call
  * periodically from long-lived processes; handles stay valid). */
 void diffsol_clear_caches(void);
 
@@ -75,7 +75,7 @@ int diffsol_ode_get_params(int64_t ode, double *out, int64_t cap,
  * (reference ode_solver_type.rs:34-39) */
 int diffsol_ode_set_ode_solver(int64_t ode, int value);
 int diffsol_ode_get_ode_solver(int64_t ode, int *out);
-/* 0 = default, 1 = lu, 2 = klu (rejected on TPU)
+/* 0 = default, 1 = lu, 2 = klu (rejected: no KLU in this build)
  * (reference linear_solver_type.rs:15-19) */
 int diffsol_ode_set_linear_solver(int64_t ode, int value);
 int diffsol_ode_get_linear_solver(int64_t ode, int *out);

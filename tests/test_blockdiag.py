@@ -128,9 +128,9 @@ def test_blockdiag_uneven_components_padded():
 
 def test_blockdiag_lockstep_ensemble():
     """Blockdiag composes with lockstep ensembles: the block axis K and the
-    member axis B fuse into ONE (nb, nb, K*B) batch-last LU stack -- the
-    configuration where the TPU tier wins (reference robertson_ode
-    duplicated-groups layout under the nbatch context, cuda/lu.rs:69-96).
+    member axis B fuse into ONE (nb, nb, K*B) batch-last LU stack (the
+    reference robertson_ode duplicated-groups layout under the nbatch
+    context, cuda/lu.rs:69-96).
     Member-wise results match independent single-instance solves."""
     from diffsol_tpu.drivers import solve_dense
     from diffsol_tpu.ensemble import solve_dense_ensemble

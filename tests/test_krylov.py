@@ -1,7 +1,6 @@
 """Matrix-free Newton-Krylov linear tier (GMRES + tridiagonal Thomas
 preconditioner) -- the third KLU-role tier, for patterns that are neither
-banded nor block-decomposable (and the only f64-viable option on TPU for
-large dense-fallback problems)."""
+banded nor block-decomposable; used when requested explicitly)."""
 
 import jax
 import jax.numpy as jnp
@@ -91,10 +90,10 @@ def test_krylov_handles_nondiagonal_coupling():
 
 def test_auto_route_large_unstructured_to_krylov():
     """use_coloring on a large pattern that is neither banded nor block
-    structured routes to the matrix-free tier ON TPU (where a dense f64
-    LU cannot compile); on the CPU suite backend the router keeps the
-    dense tier (LAPACK LU beats GMRES at this size) -- the krylov route
-    itself is exercised by requesting it explicitly."""
+    structured keeps the colored dense tier on every backend (a pivoted
+    dense LU beats GMRES at this size); the matrix-free krylov route is
+    exercised by requesting it explicitly, against the same expm
+    reference."""
     n = 300
     rng = np.random.default_rng(2)
     C = jnp.asarray(rng.uniform(-0.01, 0.01, (n, n)))  # dense coupling
@@ -109,25 +108,21 @@ def test_auto_route_large_unstructured_to_krylov():
         .use_coloring()
         .build()
     )
-    import jax
-
-    expected = "krylov" if jax.default_backend() == "tpu" else "dense"
-    assert problem.linear_solver.name.startswith(expected), (
+    assert problem.linear_solver.name.startswith("dense"), (
         problem.linear_solver.name
     )
-    if expected == "dense":
-        # the TPU-side route: same problem, krylov requested explicitly
-        problem = (
-            dt.OdeBuilder()
-            .rhs(lambda t, y, p: -p[0] * y + C @ y)
-            .init(lambda t, p: jnp.ones((n,)))
-            .p([1.0])
-            .rtol(1e-6)
-            .atol(1e-8)
-            .linear_solver("krylov")
-            .build()
-        )
-        assert problem.linear_solver.name.startswith("krylov")
+    # the matrix-free route: same problem, krylov requested explicitly
+    problem = (
+        dt.OdeBuilder()
+        .rhs(lambda t, y, p: -p[0] * y + C @ y)
+        .init(lambda t, p: jnp.ones((n,)))
+        .p([1.0])
+        .rtol(1e-6)
+        .atol(1e-8)
+        .linear_solver("krylov")
+        .build()
+    )
+    assert problem.linear_solver.name.startswith("krylov")
     sol = dt.solve_dense(
         dt.BdfSolver(problem), jnp.asarray([0.5, 1.0]), max_steps=2000
     )
